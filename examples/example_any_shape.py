@@ -1,11 +1,9 @@
-"""Any-shape, any-precision transforms (round 5).
+"""Any-shape, any-precision transforms.
 
 The reference runs any size on every backend (its own tests use
-[164,64,40] and [64,64,20,10] — ``/root/reference/Test/nddwt3D_test.m:5``,
-``Test/nddwt4D_test.m:5``). This framework matches that on TPU through
-five Pallas kernel families (docs/DESIGN.md "Shape coverage"), and adds
-the f64 accuracy contract at Pallas speed via compensated double-f32
-kernels. On CPU the same API rides the XLA paths.
+[164,64,40] and [64,64,20,10] — ``Test/nddwt3D_test.m:5``,
+``Test/nddwt4D_test.m:5``). So does this framework: the XLA paths take
+any shape, in float32, bfloat16 or float64, on the GPU and the CPU alike.
 """
 
 import os
@@ -20,7 +18,7 @@ import jax
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 
-import non_decimated_wavelets_tpu as nw
+import non_decimated_wavelets as nw
 
 
 def main():
@@ -44,8 +42,7 @@ def main():
     print(f"{shape4} db2: bands {y4.shape[0]}, "
           f"recon err {float(jnp.max(jnp.abs(xr4 - x4))):.2e}")
 
-    # float64: <=1e-12 reconstruction (on TPU this rides the compensated
-    # double-f32 kernels at ~95 Mvox/s for 256^3; here a small example).
+    # float64: <=1e-12 reconstruction.
     shape64 = (64, 64, 128)
     plan64 = nw.NDDWT(wavelet="db4", shape=shape64, dtype="double")
     x64 = jnp.asarray(rng.standard_normal(shape64))

@@ -1,10 +1,8 @@
 """Iterated shrinkage with a decreasing threshold schedule — the
 multi-sweep pattern the reference's iterative users run by hand
-(``README.md:2``), driven through ``NDDWT.dec_rec_n``: on flat-served
-shapes ALL N dec -> soft-threshold -> rec sweeps execute inside ONE
-kernel launch (in-kernel loop, schedule in SMEM), so the per-launch
-latency of a remote accelerator is paid once per chain instead of once
-per sweep."""
+(``README.md:2``), driven through ``NDDWT.dec_rec_n``: all N
+dec -> soft-threshold -> rec sweeps run as one ``lax.scan``, so a jitted
+caller compiles one sweep and dispatches the chain once."""
 
 import os
 import sys
@@ -13,7 +11,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import non_decimated_wavelets_tpu as nw
+import non_decimated_wavelets as nw
 
 
 def phantom(n=96):

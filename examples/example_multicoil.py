@@ -12,8 +12,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu.models import soft_threshold
+import non_decimated_wavelets as nw
+from non_decimated_wavelets.models import soft_threshold
 
 
 def coil_images(n=64, coils=4, seed=0):

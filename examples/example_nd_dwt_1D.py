@@ -10,7 +10,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import non_decimated_wavelets_tpu as nw
+import non_decimated_wavelets as nw
 
 
 def noisbloc(n=1024, seed=0):

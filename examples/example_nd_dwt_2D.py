@@ -9,8 +9,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu.models import denoise
+import non_decimated_wavelets as nw
+from non_decimated_wavelets.models import denoise
 
 
 def phantom(n=256):

@@ -1,11 +1,8 @@
-"""Split-complex CS reconstruction demo — complex MRI data on an
-accelerator whose runtime has NO complex arithmetic (the available TPU
-backend). The complex image rides as a (2, n, n) re/im pair; the real
-filters transform the components independently (numerically identical to
-the reference's native complex handling, ``Functions/nd_dwt_3D.m:150-154``),
-and the sparsity prox is the complex-l1 joint-magnitude shrink. On
-flat-kernel shapes each FISTA iterate (both components: dec -> shrink ->
-rec) is ONE fused kernel launch via ``plan.dec_rec_split``.
+"""Split-complex CS reconstruction demo — complex MRI data carried as a
+(2, n, n) re/im pair. The real filters transform the components
+independently (numerically identical to the reference's native complex
+handling, ``Functions/nd_dwt_3D.m:150-154``), and the sparsity prox is the
+complex-l1 joint-magnitude shrink, applied by ``plan.dec_rec_split``.
 """
 
 import os
@@ -15,8 +12,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu.models import fista_inpaint_split
+import non_decimated_wavelets as nw
+from non_decimated_wavelets.models import fista_inpaint_split
 
 
 def phantom(n=64):

@@ -1,9 +1,9 @@
 // Native CPU backend for the non-decimated DWT (dimension-generic).
 //
-// The TPU-framework equivalent of the reference's MEX layer
+// This framework's counterpart of the reference's MEX layer
 // (mex/nd_dwt_mex.c gateway + mex/nddwt.c FFTW core): a C++/OpenMP engine
 // exposed through a minimal C ABI consumed via ctypes
-// (non_decimated_wavelets_tpu/native/cpu_backend.py). Where the reference
+// (non_decimated_wavelets/native/cpu_backend.py). Where the reference
 // used frequency-domain fast convolution (FFTW batched plans,
 // mex/nddwt.c:15-61), this backend computes the numerically identical
 // direct form — separable K-tap circular correlations

@@ -1,24 +1,23 @@
-"""Multi-host NDDWT benchmark — BASELINE.md config #5.
+"""Multi-process NDDWT benchmark — BASELINE.md config #5.
 
 Runs the 100-iteration dec/rec loop on a 4D volume sharded over a global
-device mesh (spatial axes over ICI/DCN, periodic halos via collective
-permute). On a real pod, launch one process per host:
+device mesh (spatial axes over the mesh, periodic halos via collective
+permute). Launch one process per card (or per host), each with the same
+coordinator; on GPUs each process takes its own card
+(``multihost.host_gpu_id``):
 
-    python scripts/multihost_bench.py \
-        --shape 512,512,512,64 --wavelet db4 --level 3 \
-        --mesh x=4,y=2 --iters 100
+    python scripts/multihost_bench.py --coordinator localhost:12345 \
+        --num-processes 4 --process-id $i \
+        --shape 256,256,256,32 --wavelet db4 --level 3 --mesh x=4 --iters 100
 
-(`jax.distributed.initialize` auto-detects TPU pod topology; pass
---coordinator/--num-processes/--process-id only on non-auto clusters.)
-
-Single-process validation (no pod needed; 8 virtual CPU devices):
+Single-process validation (8 virtual CPU devices):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python scripts/multihost_bench.py --cpu --shape 64,32,16,8 \
         --wavelet db2 --level 2 --mesh x=4,y=2 --iters 3
 
-Per-host shard construction uses ``make_array_from_callback`` so no host
-ever materializes the global volume (512^3 x 64 f32 = 34 GB).
+Per-process shard construction uses ``make_array_from_callback`` so no
+process ever materializes the global volume (512^3 x 64 f32 = 34 GB).
 """
 
 from __future__ import annotations
@@ -64,13 +63,19 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    import non_decimated_wavelets_tpu as nw
-    from non_decimated_wavelets_tpu.parallel import ShardedNDDWT, multihost
+    import non_decimated_wavelets as nw
+    from non_decimated_wavelets.parallel import ShardedNDDWT, multihost
+    from non_decimated_wavelets.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
+    local = None
+    if not args.cpu and (args.num_processes or 1) > 1:
+        local = [multihost.host_gpu_id(args.process_id)]
     multihost.initialize(
         coordinator_address=args.coordinator,
         num_processes=args.num_processes,
         process_id=args.process_id,
+        local_device_ids=local,
     )
 
     shape = tuple(int(s) for s in args.shape.split(","))
@@ -106,9 +111,6 @@ def main():
         pair = lambda v: rec(dec(v))
         mem = None
 
-    def sync(a):
-        return float(jnp.sum(jnp.ravel(a)[:1]))
-
     import jax.lax as lax
 
     @jax.jit
@@ -119,13 +121,12 @@ def main():
         out, _ = lax.scan(body, v, None, length=args.iters)
         return out
 
-    sync(loop(x))  # compile
+    jax.block_until_ready(loop(x))  # compile
     t0 = time.perf_counter()
-    out = loop(x)
-    sync(out)
+    out = jax.block_until_ready(loop(x))
     dt = (time.perf_counter() - t0) / args.iters
     nvox = int(np.prod(shape))
-    n_chips = jax.device_count()
+    n_dev = jax.device_count()
     # Single-pair reconstruction error plus the accumulated error of the
     # whole `iters`-deep identity chain (both computed sharded — no host
     # gather of the global volume).
@@ -135,14 +136,14 @@ def main():
     if jax.process_index() == 0:
         rec_obj = {
             "metric": f"voxels/sec, {args.level}-level {args.wavelet} "
-            f"NDDWT dec+rec, shape {shape}, {n_chips} chips"
+            f"NDDWT dec+rec, shape {shape}, {n_dev} devices"
             + (" [level-streamed layout]" if args.streamed else ""),
             "seconds_per_pair": dt,
             "voxels_per_sec": nvox / dt,
-            "voxels_per_sec_per_chip": nvox / dt / n_chips,
+            "voxels_per_sec_per_device": nvox / dt / n_dev,
             "iters": args.iters,
             "processes": jax.process_count(),
-            "devices": n_chips,
+            "devices": n_dev,
             "max_abs_roundtrip_err_1pair": err1,
             "max_abs_roundtrip_err_accumulated": err,
         }

@@ -7,7 +7,7 @@ import warnings
 import numpy as np
 import pytest
 
-import non_decimated_wavelets_tpu as nw
+import non_decimated_wavelets as nw
 
 
 @pytest.mark.parametrize(
@@ -114,36 +114,3 @@ def test_mat_returns_host_arrays(rng):
 
     tg = nw.nd_dwt_2D("db2", (16, 16), compute="gpu")
     assert isinstance(tg.dec(x, 2), jax.Array)
-
-
-def test_complex_on_accelerator_raises(rng, monkeypatch):
-    """Complex input must fail loudly (pointing at dec_split/rec_split) on
-    an accelerator backend with no complex arithmetic — not UNIMPLEMENTED
-    at execution time."""
-    import jax
-
-    plan = nw.NDDWT(wavelet="db2", shape=(16, 16))
-    x = rng.standard_normal((16, 16)) + 1j * rng.standard_normal((16, 16))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="dec_split"):
-        plan.dec(x.astype(np.complex64), 2)
-    y = np.zeros((7, 16, 16), np.complex64)
-    with pytest.raises(ValueError, match="dec_split"):
-        plan.rec(y, band_axis=0)
-
-
-def test_pallas_path_on_cpu_fails_fast(rng):
-    """An explicit path='pallas' on the CPU backend must raise a clear
-    ValueError at trace time, not an opaque Mosaic lowering error
-    (VERDICT r2 weak item 6). Inside force_tpu_interpret_mode it works."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    plan = nw.NDDWT(wavelet="db2", shape=(16, 128), dtype="float32",
-                    path="pallas")
-    x = rng.standard_normal((16, 128)).astype(np.float32)
-    with pytest.raises(ValueError, match="force_tpu_interpret_mode"):
-        plan.dec(x, 2)
-    with pltpu.force_tpu_interpret_mode():
-        y = plan.dec(x, 2, band_axis=0)
-        xr = plan.rec(y, band_axis=0)
-    np.testing.assert_allclose(np.asarray(xr), x, atol=1e-4)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu import oracle
+import non_decimated_wavelets as nw
+from non_decimated_wavelets import oracle
 
 CASES = [
     ((54,), "db4", 3),
@@ -112,8 +112,7 @@ def test_plan_validation():
 
 def test_dec_split_matches_complex(rng):
     """Split re/im transforms are numerically identical to the complex path
-    (real filters act on re/im independently) — the complex route for
-    accelerators whose runtime lacks complex arithmetic."""
+    (real filters act on re/im independently)."""
     shape = (16, 14)
     x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     plan = nw.NDDWT(wavelet="db3", shape=shape, dtype="double", path="direct")
@@ -134,7 +133,7 @@ def test_split_validation():
 
 
 def test_fista_inpaint(rng):
-    from non_decimated_wavelets_tpu.models import fista_inpaint
+    from non_decimated_wavelets.models import fista_inpaint
 
     n = 32
     img = np.zeros((n, n))

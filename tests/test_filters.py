@@ -9,7 +9,7 @@ correlation-orientation conventions the engine relies on.
 import numpy as np
 import pytest
 
-from non_decimated_wavelets_tpu import filters as F
+from non_decimated_wavelets import filters as F
 
 
 @pytest.mark.parametrize("p", list(range(1, 13)))
@@ -156,7 +156,7 @@ def test_taps_match_reference_tables():
 # Symlets (least-asymmetric Daubechies) — capability superset beyond the
 # reference's db table.
 # ---------------------------------------------------------------------------
-from non_decimated_wavelets_tpu.filters import (
+from non_decimated_wavelets.filters import (
     _phase_nonlinearity,
     _scaling_taps_long,
     symlet_taps,

@@ -4,10 +4,9 @@ the iterative loops the reference's filter-cache design existed to serve."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu.models import (
+import non_decimated_wavelets as nw
+from non_decimated_wavelets.models import (
     denoise,
     fista_cs_mri,
     fista_inpaint,
@@ -60,8 +59,8 @@ def test_fista_cs_recovers(rng):
 
 
 def test_fista_inpaint_split_matches_complex(rng):
-    """The TPU-safe split-complex FISTA is numerically identical to the
-    complex-arithmetic loop (CPU): real filters + joint-magnitude shrink
+    """The split-complex FISTA is numerically identical to the
+    complex-arithmetic loop: real filters + joint-magnitude shrink
     == complex soft-threshold (the reference's complex contract,
     Functions/nd_dwt_3D.m:150-154)."""
     n = 32
@@ -83,9 +82,9 @@ def test_fista_inpaint_split_matches_complex(rng):
 
 
 def test_fista_inpaint_split_sharded_matches_single(rng):
-    """Complex FISTA on the multi-chip path: ShardedNDDWT split transform
+    """Complex FISTA on the multi-device path: ShardedNDDWT split transform
     inside the same loop reproduces the single-device result."""
-    from non_decimated_wavelets_tpu.parallel.sharded import ShardedNDDWT
+    from non_decimated_wavelets.parallel.sharded import ShardedNDDWT
     from tests.test_sharded import _skip_if_few_devices, make_mesh
 
     _skip_if_few_devices(4)
@@ -100,7 +99,7 @@ def test_fista_inpaint_split_sharded_matches_single(rng):
                       level=2, iters=10)
     )
     mesh = make_mesh({"x": 4})
-    sh = ShardedNDDWT(plan, mesh, ("x", None), use_pallas=False)
+    sh = ShardedNDDWT(plan, mesh, ("x", None))
     pair = sh.shard_input_split(jnp.asarray(np.stack([b.real, b.imag])))
     out = np.asarray(
         fista_inpaint_split(sh, pair, jnp.asarray(mask), lam=0.02,
@@ -125,25 +124,8 @@ def test_fista_inpaint_split_traced_lam(rng):
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-12)
 
 
-def test_fista_fused_rejects_bad_shapes(rng):
-    """The fused fast path validates b/mask shapes like dec_rec does
-    (review r3 finding 3), and declines complex input (finding 2)."""
-    plan = nw.NDDWT(wavelet="db2", shape=(32, 32), dtype=jnp.float32)
-    good = jnp.zeros((32, 32), jnp.float32)
-    with pytest.raises(ValueError, match="does not match plan shape"):
-        plan._fista_fused(jnp.zeros((16, 16), jnp.float32), good, 1,
-                          [0.1], [0.0], 1.0)
-    with pytest.raises(ValueError, match="mask shape"):
-        plan._fista_fused(good, jnp.zeros((16, 16), jnp.float32), 1,
-                          [0.1], [0.0], 1.0)
-    assert plan._fista_fused(
-        jnp.zeros((32, 32), jnp.complex64), good, 1, [0.1], [0.0], 1.0
-    ) is None
-
-
 def test_fista_inpaint_complex_cpu(rng):
-    """Complex b on a CPU plan still runs the (complex-capable) generic
-    loop — the fast paths must not silently cast to real."""
+    """Complex b runs the complex-capable loop; nothing casts it to real."""
     n = 16
     xc = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
     mask = (rng.random((n, n)) < 0.6).astype(np.float64)

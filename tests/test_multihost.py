@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu.parallel import make_mesh, multihost
+import non_decimated_wavelets as nw
+from non_decimated_wavelets.parallel import make_mesh, multihost
 
 
 def test_global_mesh_and_sync():
@@ -40,6 +40,17 @@ def test_initialize_single_process_noop():
     multihost.initialize(num_processes=1)  # must not raise
 
 
+@pytest.mark.parametrize(
+    "visible, process_id, expected",
+    [("3", 2, 0), ("0,1,2,3", 2, 2), ("0,1,2,3", 6, 2), ("4,5", 3, 1)],
+)
+def test_host_gpu_id(monkeypatch, visible, process_id, expected):
+    """A launcher that leaves one GPU visible gets that card; otherwise
+    the process id wraps over the host's visible GPUs."""
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    assert multihost.host_gpu_id(process_id) == expected
+
+
 def test_plan_config_roundtrip():
     plan = nw.NDDWT(
         wavelet=("db2", "db4"), shape=(32, 64), preserve_l2=True, dtype="double"
@@ -55,7 +66,7 @@ def test_plan_config_roundtrip():
 
 
 def test_two_process_distributed_roundtrip(tmp_path):
-    """TRUE multi-process ``jax.distributed`` exercise (VERDICT r2 item 2):
+    """TRUE multi-process ``jax.distributed`` exercise:
     two OS processes, a coordinator on localhost, 4 virtual CPU devices
     each, one global {x:4, y:2} mesh — initialize / global_mesh /
     assert_mesh_synchronized / host_local_array / sharded dec+rec all
@@ -123,15 +134,15 @@ def test_two_process_distributed_roundtrip(tmp_path):
 
 
 def test_initialize_propagates_bootstrap_failure():
-    """A genuine bootstrap failure must raise, not be swallowed (VERDICT
-    r2: the old blanket except masked real pod failures). Run in a
+    """A genuine bootstrap failure must raise, not be swallowed (a blanket
+    except would mask real cluster failures). Run in a
     subprocess: a failed in-process distributed init is sticky."""
     import subprocess
     import sys
 
     code = (
         "import jax; jax.config.update('jax_platforms','cpu')\n"
-        "from non_decimated_wavelets_tpu.parallel import multihost\n"
+        "from non_decimated_wavelets.parallel import multihost\n"
         "try:\n"
         "    multihost.initialize('127.0.0.1:1', num_processes=2,\n"
         "                         process_id=1, initialization_timeout=3)\n"
@@ -156,7 +167,7 @@ def test_desync_check_multi_axis():
     """The desync psum must cover every mesh axis and use
     placement-dependent contributions (a 2-axis mesh regression)."""
     import jax
-    from non_decimated_wavelets_tpu.parallel import multihost
+    from non_decimated_wavelets.parallel import multihost
 
     mesh = multihost.global_mesh({"x": 4, "y": 2})
     multihost.assert_mesh_synchronized(mesh)

@@ -7,8 +7,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from non_decimated_wavelets_tpu import oracle
-from non_decimated_wavelets_tpu.native import cpu_backend
+from non_decimated_wavelets import oracle
+from non_decimated_wavelets.native import cpu_backend
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,7 +51,7 @@ def test_native_complex(rng):
 
 
 def test_native_via_class_api(rng):
-    import non_decimated_wavelets_tpu as nw
+    import non_decimated_wavelets as nw
 
     t = nw.nd_dwt_2D("db2", (24, 24), compute="mex")  # reference alias
     assert t.compute == "native"
@@ -64,7 +64,7 @@ def test_native_via_class_api(rng):
 def test_native_symlets_match_oracle(rng):
     """The C++ backend is filter-agnostic (taps computed host-side): the
     symlet superset rides it unchanged."""
-    from non_decimated_wavelets_tpu.native import cpu_backend as cb
+    from non_decimated_wavelets.native import cpu_backend as cb
 
     if not cb.available():
         pytest.skip("native backend not built")

@@ -6,7 +6,7 @@ and band-layout checks on deliberately odd sizes."""
 import numpy as np
 import pytest
 
-from non_decimated_wavelets_tpu import oracle
+from non_decimated_wavelets import oracle
 
 CASES = [
     ((54,), "db4", 3),
@@ -103,7 +103,7 @@ def test_bad_level():
 
 
 def test_fuzz_random_configs_vs_oracle():
-    import non_decimated_wavelets_tpu as nw
+    import non_decimated_wavelets as nw
 
     """Seeded fuzz: random (ndim, odd/even extents, db/sym wavelet mix,
     level) configs, direct path vs the NumPy oracle at f64 — broadens the

@@ -10,7 +10,7 @@ the reference's own, scaled where the original would dominate CI time.
 import numpy as np
 import pytest
 
-import non_decimated_wavelets_tpu as nw
+import non_decimated_wavelets as nw
 
 REFERENCE_CONFIGS = [
     # (sizes, wavelets, level)  -- from Test/nddwt{1,2,3,4}D_test.m:5

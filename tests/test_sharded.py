@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import non_decimated_wavelets_tpu as nw
-from non_decimated_wavelets_tpu import oracle
-from non_decimated_wavelets_tpu.parallel import ShardedNDDWT, make_mesh
+import non_decimated_wavelets as nw
+from non_decimated_wavelets import oracle
+from non_decimated_wavelets.parallel import ShardedNDDWT, make_mesh
 
 
 def _skip_if_few_devices(n):
@@ -91,7 +91,7 @@ def test_validation_errors():
 # --------------------------------------------------------------------------
 # Pencil FFT-path sharding (all_to_all resharding; SURVEY §5 regime (b)).
 # --------------------------------------------------------------------------
-from non_decimated_wavelets_tpu.parallel import ShardedFFTNDDWT
+from non_decimated_wavelets.parallel import ShardedFFTNDDWT
 
 
 @pytest.mark.parametrize(
@@ -145,11 +145,11 @@ def test_batch_spec_composes_with_spatial(rng):
 
 
 # --------------------------------------------------------------------------
-# Pallas 'valid'-mode kernels inside shard_map (interpreter mode): the
-# multi-chip compute path must match the oracle exactly, including the
-# first<->last shard wrap riding ppermute.
+# float32 on the XLA shard bodies: the multi-device compute path must match
+# the oracle, including the first<->last shard wrap riding ppermute, on
+# every mesh layout (one or two sharded axes, several shards per axis,
+# size-1 mesh axes, long filters).
 # --------------------------------------------------------------------------
-from jax.experimental.pallas import tpu as pltpu
 
 
 @pytest.mark.parametrize(
@@ -158,39 +158,27 @@ from jax.experimental.pallas import tpu as pltpu
         ((64, 256), "db4", ("x", None), {"x": 4}, 2),
         ((32, 32, 128), ("db2", "db3", "db4"), ("x", "y", None), {"x": 2, "y": 2}, 2),
         ((16, 16, 128), "db1", ("x", None, None), {"x": 2}, 3),
-        # slab 'valid' mode on the sublane (8-aligned) axis
         ((16, 32, 128), "db4", (None, "y", None), {"y": 2}, 2),
-        # slab 'valid' mode with MULTIPLE tiles per shard along the slab
-        # axis (interior tiles take local halo rows, only shard-boundary
-        # tiles read the ppermuted slab)
         ((64, 32, 128), "db4", ("x", None, None), {"x": 2}, 2),
-        # two-axis slab mode with corner slabs AND multiple tiles per shard
         ((64, 64, 128), "db2", ("x", "y", None), {"x": 2, "y": 2}, 2),
-        # concat 'valid' fallback: db10 halo (9/10 rows) exceeds the 8-row
-        # tile of the 24-row local shard -> _slab_axes_for declines
+        # db10 halo (9/10 rows) against a 24-row local shard
         ((96, 32, 128), "db10", ("x", None, None), {"x": 4}, 1),
-        # size-1 mesh axes: the kernels' local-wrap segment variant (no
-        # slab operand, boundary tiles read wrapped local rows) — the
-        # bench's per-chip configuration
+        # size-1 mesh axes: the periodic neighbor is the shard itself
         ((32, 32, 128), "db4", ("x", None, None), {"x": 1}, 3),
         ((32, 32, 128), "db2", ("x", "y", None), {"x": 1, "y": 1}, 2),
-        # mixed: one real slab axis + one size-1 wrap axis (corner combos
-        # read the real axis's slab at wrapped offsets)
         ((32, 32, 128), "db2", ("x", "y", None), {"x": 2, "y": 1}, 2),
     ],
 )
 @pytest.mark.parametrize("pl2", [False, True])
-def test_sharded_pallas_matches_oracle(shape, wv, spec, mesh_shape, level, pl2, rng):
+def test_sharded_f32_matches_oracle(shape, wv, spec, mesh_shape, level, pl2, rng):
     _skip_if_few_devices(int(np.prod(list(mesh_shape.values()))))
     mesh = make_mesh(mesh_shape)
     plan = nw.NDDWT(wavelet=wv, shape=shape, preserve_l2=pl2, dtype=jnp.float32)
-    sh = ShardedNDDWT(plan, mesh, spec, use_pallas=True)
-    assert sh.use_pallas
+    sh = ShardedNDDWT(plan, mesh, spec)
     x = rng.standard_normal(shape).astype(np.float32)
     xs = sh.shard_input(jnp.asarray(x))
-    with pltpu.force_tpu_interpret_mode():
-        y = sh.dec(xs, level)
-        xr = sh.rec(y)
+    y = sh.dec(xs, level)
+    xr = sh.rec(y)
     gold = np.moveaxis(
         oracle.dec(np.asarray(x, np.float64), wv, level, preserve_l2=pl2), -1, 0
     )
@@ -198,39 +186,25 @@ def test_sharded_pallas_matches_oracle(shape, wv, spec, mesh_shape, level, pl2, 
     np.testing.assert_allclose(np.asarray(xr), x, atol=1e-4)
 
 
-def test_sharded_pallas_infeasible_raises():
-    _skip_if_few_devices(8)
-    mesh = make_mesh({"x": 8})
-    plan = nw.NDDWT(wavelet="db2", shape=(64, 50), dtype=jnp.float32)
-    with pytest.raises(ValueError, match="use_pallas"):
-        ShardedNDDWT(plan, mesh, ("x", None), use_pallas=True)
-
-
 @pytest.mark.parametrize(
     "shape,wv,spec,mesh_shape,level",
     [
         ((16, 16, 8, 16), "db2", ("x", "y", None, None), {"x": 2, "y": 2}, 2),
         ((32, 16, 4, 32), "db1", ("x", None, None, None), {"x": 4}, 2),
-        # 4D slab 'valid' mode with multiple lead tiles per shard
         ((64, 16, 4, 32), "db2", ("x", None, None, None), {"x": 2}, 2),
-        # size-1 mesh axis: local-wrap segment variant (the bench's
-        # per-chip 4D configuration)
         ((32, 16, 4, 32), "db2", ("x", None, None, None), {"x": 1}, 2),
     ],
 )
-def test_sharded_pallas_4d_matches_oracle(shape, wv, spec, mesh_shape, level, rng):
-    """4D sharded: lane stage local, leading stage 'valid'-mode on
-    ppermute'd X/Y halos."""
+def test_sharded_4d_f32_matches_oracle(shape, wv, spec, mesh_shape, level, rng):
+    """4D sharded over the leading axes, float32."""
     _skip_if_few_devices(int(np.prod(list(mesh_shape.values()))))
     mesh = make_mesh(mesh_shape)
     plan = nw.NDDWT(wavelet=wv, shape=shape, dtype=jnp.float32)
-    sh = ShardedNDDWT(plan, mesh, spec, use_pallas=True)
-    assert sh.use_pallas
+    sh = ShardedNDDWT(plan, mesh, spec)
     x = rng.standard_normal(shape).astype(np.float32)
     xs = sh.shard_input(jnp.asarray(x))
-    with pltpu.force_tpu_interpret_mode():
-        y = sh.dec(xs, level)
-        xr = sh.rec(y)
+    y = sh.dec(xs, level)
+    xr = sh.rec(y)
     gold = np.moveaxis(
         oracle.dec(np.asarray(x, np.float64), wv, level), -1, 0
     )
@@ -245,7 +219,7 @@ def test_halo_validation_allows_half_filter_shards(rng):
     _skip_if_few_devices(8)
     mesh = make_mesh({"x": 8})
     plan = nw.NDDWT(wavelet="db4", shape=(32, 16), dtype="double")
-    sh = ShardedNDDWT(plan, mesh, ("x", None), use_pallas=False)
+    sh = ShardedNDDWT(plan, mesh, ("x", None))
     x = rng.standard_normal((32, 16))
     xs = sh.shard_input(jnp.asarray(x))
     y = sh.dec(xs, 2)
@@ -253,14 +227,14 @@ def test_halo_validation_allows_half_filter_shards(rng):
     np.testing.assert_allclose(xr, x, atol=1e-12)
 
 # --------------------------------------------------------------------------
-# Sharded split-complex: complex volumes on the multi-chip path (the
-# reference handles complex natively, Functions/nd_dwt_3D.m:150-154; on the
-# complex-less TPU backend the pair axis leads, unsharded).
+# Sharded split-complex: complex volumes as a (2, *spatial) re/im pair, the
+# pair axis leading and unsharded (the reference handles complex natively,
+# Functions/nd_dwt_3D.m:150-154).
 # --------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize(
-    "shape,wv,spec,mesh_shape,level,use_pallas",
+    "shape,wv,spec,mesh_shape,level,f32",
     [
         ((32, 16), "db2", ("x", None), {"x": 4}, 2, False),
         ((64, 256), "db4", ("x", None), {"x": 4}, 2, True),
@@ -269,26 +243,19 @@ def test_halo_validation_allows_half_filter_shards(rng):
     ],
 )
 def test_sharded_split_complex_matches_oracle(shape, wv, spec, mesh_shape,
-                                              level, use_pallas, rng):
+                                              level, f32, rng):
     _skip_if_few_devices(int(np.prod(list(mesh_shape.values()))))
     mesh = make_mesh(mesh_shape)
-    dt = jnp.float32 if use_pallas else "double"
+    dt = jnp.float32 if f32 else "double"
     plan = nw.NDDWT(wavelet=wv, shape=shape, dtype=dt)
-    sh = ShardedNDDWT(plan, mesh, spec, use_pallas=use_pallas)
+    sh = ShardedNDDWT(plan, mesh, spec)
     xc = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     pair = np.stack([xc.real, xc.imag]).astype(np.asarray(jnp.zeros(0, dt)).dtype)
     ps = sh.shard_input_split(jnp.asarray(pair))
-    if use_pallas:
-        from jax.experimental.pallas import tpu as pltpu
-
-        with pltpu.force_tpu_interpret_mode():
-            y = sh.dec_split(ps, level)
-            xr = sh.rec_split(y)
-    else:
-        y = sh.dec_split(ps, level)
-        xr = sh.rec_split(y)
+    y = sh.dec_split(ps, level)
+    xr = sh.rec_split(y)
     gold = np.moveaxis(oracle.dec(xc, wv, level), -1, 0)
-    tol = 1e-4 if use_pallas else 1e-12
+    tol = 1e-4 if f32 else 1e-12
     assert y.shape == (2, plan.num_bands(level)) + shape
     np.testing.assert_allclose(np.asarray(y[0]), gold.real, atol=tol)
     np.testing.assert_allclose(np.asarray(y[1]), gold.imag, atol=tol)
@@ -306,8 +273,7 @@ def test_sharded_split_rejects_batch_spec():
 
 
 # --------------------------------------------------------------------------
-# Fused sharded iterate: dec -> shrink -> rec in one shard_map region
-# (in-kernel shrink on the Pallas path).
+# Sharded iterate: dec -> shrink -> rec in one shard_map region.
 # --------------------------------------------------------------------------
 
 
@@ -318,7 +284,7 @@ def test_sharded_dec_rec_xla(threshold, rng):
     mesh = make_mesh({"x": 4})
     plan = nw.NDDWT(wavelet="db2", shape=(32, 24), preserve_l2=True,
                     dtype="double")
-    sh = ShardedNDDWT(plan, mesh, ("x", None), use_pallas=False)
+    sh = ShardedNDDWT(plan, mesh, ("x", None))
     x = rng.standard_normal((32, 24))
     xs = sh.shard_input(jnp.asarray(x))
     y, xr = sh.dec_rec(xs, 2, threshold=threshold)
@@ -335,19 +301,18 @@ def test_sharded_dec_rec_xla(threshold, rng):
     )
 
 
-def test_sharded_dec_rec_pallas_fused_shrink(rng):
-    """Pallas body (slab 'valid' mode): the in-kernel detail shrink matches
-    the oracle dec + shrink + rec."""
+def test_sharded_dec_rec_f32_shrink_matches_oracle(rng):
+    """float32 sharded iterate: the detail shrink matches the oracle
+    dec + shrink + rec."""
     _skip_if_few_devices(2)
     mesh = make_mesh({"x": 2})
     shape, level, lam = (64, 32, 128), 2, 0.3
     plan = nw.NDDWT(wavelet="db4", shape=shape, preserve_l2=True,
                     dtype=jnp.float32)
-    sh = ShardedNDDWT(plan, mesh, ("x", None, None), use_pallas=True)
+    sh = ShardedNDDWT(plan, mesh, ("x", None, None))
     x = rng.standard_normal(shape).astype(np.float32)
     xs = sh.shard_input(jnp.asarray(x))
-    with pltpu.force_tpu_interpret_mode():
-        y, xr = sh.dec_rec(xs, level, threshold=lam)
+    y, xr = sh.dec_rec(xs, level, threshold=lam)
     gold = np.moveaxis(
         oracle.dec(np.asarray(x, np.float64), "db4", level, preserve_l2=True),
         -1, 0,
@@ -364,9 +329,9 @@ def test_sharded_dec_rec_pallas_fused_shrink(rng):
 
 
 def test_fista_inpaint_sharded_fused(rng):
-    """fista_inpaint on a ShardedNDDWT routes through the fused sharded
-    iterate and matches the single-device result."""
-    from non_decimated_wavelets_tpu.models import fista_inpaint
+    """fista_inpaint on a ShardedNDDWT routes through the one-region
+    sharded iterate and matches the single-device result."""
+    from non_decimated_wavelets.models import fista_inpaint
 
     _skip_if_few_devices(4)
     n = 32
@@ -379,7 +344,7 @@ def test_fista_inpaint_sharded_fused(rng):
         fista_inpaint(plan, b, jnp.asarray(mask), 0.05, level=2, iters=10)
     )
     mesh = make_mesh({"x": 4})
-    sh = ShardedNDDWT(plan, mesh, ("x", None), use_pallas=False)
+    sh = ShardedNDDWT(plan, mesh, ("x", None))
     out = np.asarray(
         fista_inpaint(sh, sh.shard_input(b), jnp.asarray(mask), 0.05,
                       level=2, iters=10)
@@ -387,29 +352,24 @@ def test_fista_inpaint_sharded_fused(rng):
     np.testing.assert_allclose(out, ref, atol=1e-12)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_sharded_dec_rec_split_matches_complex(use_pallas, rng):
-    """Fused sharded split-complex iterate == complex dec + complex
-    soft-threshold + rec (oracle, f32 tolerance on the Pallas body)."""
+@pytest.mark.parametrize("f32", [False, True])
+def test_sharded_dec_rec_split_matches_complex(f32, rng):
+    """Sharded split-complex iterate == complex dec + complex
+    soft-threshold + rec (oracle; f32 tolerance for float32)."""
     _skip_if_few_devices(2)
     mesh = make_mesh({"x": 2})
-    if use_pallas:
+    if f32:
         shape, wv, dt, atol = (32, 16, 128), "db3", jnp.float32, 1e-4
     else:
         shape, wv, dt, atol = (32, 24), "db3", "double", 1e-12
     lam, level = 0.3, 2
     plan = nw.NDDWT(wavelet=wv, shape=shape, preserve_l2=True, dtype=dt)
-    sh = ShardedNDDWT(plan, mesh, ("x",) + (None,) * (len(shape) - 1),
-                      use_pallas=use_pallas)
+    sh = ShardedNDDWT(plan, mesh, ("x",) + (None,) * (len(shape) - 1))
     xc = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     pair = sh.shard_input_split(
         jnp.asarray(np.stack([xc.real, xc.imag]), plan.real_dtype)
     )
-    if use_pallas:
-        with pltpu.force_tpu_interpret_mode():
-            y, xr = sh.dec_rec_split(pair, level, threshold=lam)
-    else:
-        y, xr = sh.dec_rec_split(pair, level, threshold=lam)
+    y, xr = sh.dec_rec_split(pair, level, threshold=lam)
     gold = np.moveaxis(
         oracle.dec(xc, wv, level, preserve_l2=True), -1, 0
     )
@@ -425,12 +385,12 @@ def test_sharded_dec_rec_split_matches_complex(use_pallas, rng):
 
 
 @pytest.mark.parametrize(
-    "shape,wv,spec,mesh_shape,level,pallas",
+    "shape,wv,spec,mesh_shape,level,f32",
     [
-        # XLA bodies (f64-exact check vs the plain pair)
+        # float64 (exact check vs the plain pair)
         ((16, 16, 12), "db2", ("x", "y", None), {"x": 2, "y": 2}, 2, False),
         ((16, 8, 6, 6), "db1", ("x", None, None, None), {"x": 4}, 2, False),
-        # Pallas bodies (interpret mode), 3D and 4D
+        # float32, 3D and 4D
         ((32, 32, 128), "db4", ("x", None, None), {"x": 2}, 3, True),
         ((16, 16, 8, 16), "db2", ("x", "y", None, None), {"x": 2, "y": 2},
          2, True),
@@ -438,48 +398,41 @@ def test_sharded_dec_rec_split_matches_complex(use_pallas, rng):
 )
 @pytest.mark.parametrize("threshold", [0.0, 0.1])
 def test_streamed_pair_matches_classic(shape, wv, spec, mesh_shape, level,
-                                       pallas, threshold, rng):
+                                       f32, threshold, rng):
     """The level-streamed fused iterate (BASELINE config #5 memory
     layout: one level's bands live at a time, recompute-on-the-way-up)
     must equal the classic materialize-all-bands iterate exactly."""
     _skip_if_few_devices(int(np.prod(list(mesh_shape.values()))))
     mesh = make_mesh(mesh_shape)
-    dt = jnp.float32 if pallas else "double"
+    dt = jnp.float32 if f32 else "double"
     plan = nw.NDDWT(wavelet=wv, shape=shape, dtype=dt)
-    sh = ShardedNDDWT(plan, mesh, spec, use_pallas=pallas)
+    sh = ShardedNDDWT(plan, mesh, spec)
     x = rng.standard_normal(shape)
-    if pallas:
+    if f32:
         x = x.astype(np.float32)
     xs = sh.shard_input(jnp.asarray(x))
-    if pallas:
-        with pltpu.force_tpu_interpret_mode():
-            xr_s = sh.dec_rec_streamed(xs, level, threshold)
-            _, xr_c = sh.dec_rec(xs, level, threshold)
-        atol = 1e-5
-    else:
-        xr_s = sh.dec_rec_streamed(xs, level, threshold)
-        _, xr_c = sh.dec_rec(xs, level, threshold)
-        atol = 1e-12
+    xr_s = sh.dec_rec_streamed(xs, level, threshold)
+    _, xr_c = sh.dec_rec(xs, level, threshold)
+    atol = 1e-5 if f32 else 1e-12
     np.testing.assert_allclose(np.asarray(xr_s), np.asarray(xr_c),
                                atol=atol)
     if not threshold:
         np.testing.assert_allclose(np.asarray(xr_s), np.asarray(x),
-                                   atol=max(atol, 1e-5 if pallas else 1e-12))
+                                   atol=atol)
 
 
 def test_peak_memory_model_config5_math():
     """The config-#5 feasibility numbers documented in DESIGN.md follow
-    from the model: 512^3 x 64 db4 L3 f32 full-band layout is ~1.8 TB
-    total vs ~0.86 TB streamed (2.08x), i.e. >=115 v5e chips vs >=55."""
+    from the model: for 4D db4 L3 the full-band layout holds 46 bands + 2
+    + an 8-volume axis-pass temp, the streamed layout 3 + 1 + 16 + 1 + 8
+    local volumes (1.93x less)."""
     mesh = make_mesh({"x": 1})
     plan = nw.NDDWT(wavelet="db4", shape=(64, 64, 64, 32),
                     dtype=jnp.float32)
-    sh = ShardedNDDWT(plan, mesh, ("x", None, None, None),
-                      use_pallas=False)
+    sh = ShardedNDDWT(plan, mesh, ("x", None, None, None))
     m = sh.peak_memory_model(3)
-    # B=46 full vs streamed 3+1+16+1+4=25 local volumes
     vox = 64 * 64 * 64 * 32
     assert m["local_voxels"] == vox
-    assert m["full_band_layout_bytes"] == (46 + 2 + 4) * vox * 4
-    assert m["streamed_layout_bytes"] == 25 * vox * 4
-    assert 2.0 < m["ratio"] < 2.2
+    assert m["full_band_layout_bytes"] == (46 + 2 + 8) * vox * 4
+    assert m["streamed_layout_bytes"] == 29 * vox * 4
+    assert 1.9 < m["ratio"] < 2.0
